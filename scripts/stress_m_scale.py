@@ -30,7 +30,7 @@ def main() -> int:
     from stringdecomposer_tpu.ops.chain_dp import build_window_batch
     from stringdecomposer_tpu.ops.oracle import Scoring, decompose_window_oracle
     from stringdecomposer_tpu.ops.traceback import blocks_from_device
-    from stringdecomposer_tpu.pipeline import PipelineConfig, _resolve_forward
+    from stringdecomposer_tpu.ops import backend
 
     quick = "--quick" in sys.argv
     rng = np.random.default_rng(17)
@@ -54,7 +54,7 @@ def main() -> int:
             arr[idx] = rng.choice(alpha, len(idx))
             wins.append(encode("".join(arr)))
         wb, wl = build_window_batch(wins, W)
-        fwd = _resolve_forward(PipelineConfig())
+        fwd = backend.resolve("chain_dp", n_mono=M, mono_len=Lpad)
         bl, ct = fwd(wb, wl, mono, lens)
         bl, ct = np.asarray(bl), np.asarray(ct)
         for b in range(len(wins)):
@@ -74,10 +74,7 @@ def main() -> int:
         print(f"M={M}: correctness vs oracle ok ({len(wins)} windows)", flush=True)
 
     # ---- throughput vs M on the current backend ----
-    import jax
-
-    on_tpu = jax.default_backend() != "cpu"
-    if on_tpu and not quick:
+    if backend.platform() != "cpu" and not quick:
         for m_fwd in [12, 64, 128, 256]:
             monomers = add_reverse_complement(synth_monomers(m_fwd, rng))
             M = len(monomers)
@@ -95,7 +92,7 @@ def main() -> int:
                 arr[idx] = rng.choice(alpha, len(idx))
                 wins.append(encode("".join(arr)))
             wb, wl = build_window_batch(wins, W)
-            fwd = _resolve_forward(PipelineConfig())
+            fwd = backend.resolve("chain_dp", n_mono=M, mono_len=Lpad)
             r = fwd(wb, wl, mono, lens)
             np.asarray(r[0])  # warm + sync
             t0 = time.perf_counter()

@@ -12,7 +12,7 @@ from setuptools import find_packages, setup
 setup(
     name="stringdecomposer-tpu",
     version="0.1.0",
-    description="TPU-native monomer string decomposition (JAX/Pallas)",
+    description="Monomer string decomposition on JAX, with CUDA kernels for NVIDIA GPUs",
     packages=find_packages(include=["stringdecomposer_tpu*"]),
     package_data={
         "stringdecomposer_tpu": [
@@ -20,6 +20,7 @@ setup(
             "test_data/*",
             "runtime/native/*.cpp",
             "runtime/native/Makefile",
+            "ops/cuda/*.cu",
         ]
     },
     python_requires=">=3.10",

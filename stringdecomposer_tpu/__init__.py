@@ -1,4 +1,4 @@
-"""stringdecomposer-tpu: TPU-native monomer string decomposition.
+"""stringdecomposer-tpu: monomer string decomposition on JAX (CUDA kernels on NVIDIA GPUs).
 
 Public API:
     run(...)              — full pipeline, reference-compatible TSV outputs

@@ -1,6 +1,6 @@
 """FASTA input/output and nucleotide encoding.
 
-TPU-native replacement for the reference's two FASTA loaders
+One replacement for the reference's two FASTA loaders
 (reference: src/main.cpp:314-346 `load_fasta` and main.py:63-72 `load_fasta`).
 One loader serves both roles; sequences are validated against the ACGTN
 alphabet with the same error semantics as the reference binary
@@ -18,7 +18,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-logger = logging.getLogger("SD-TPU")
+logger = logging.getLogger("stringdecomposer")
 
 # Encoding table: A=0 C=1 G=2 T=3 N=4, PAD=5.
 PAD_CODE = 5

@@ -1,13 +1,13 @@
-"""Chain DP — the compute core, as a JAX/XLA program (TPU-first design).
+"""Chain DP — the compute core, as a plain JAX/XLA program.
 
 Re-design of the reference's AlignPartClassicDP + traceback
 (reference: src/main.cpp:151-270). The reference fills a ~180 MB score cube
 with a per-cell triple loop, then walks it backward cell-by-cell. Neither the
-cube nor the walk survives contact with TPU reality (HBM footprint, and
-device->host links are far too slow to ship per-cell data), so this kernel:
+cube nor the walk suits an accelerator (device-memory footprint, and the
+device->host link is far too slow to ship per-cell data), so this program:
 
   1. carries ONE [M, L] score column through a `lax.scan` over read positions
-     (the only sequential axis), updating all M*L cells per step on the VPU;
+     (the only sequential axis), updating all M*L cells per step;
   2. folds the same-column deletion chain into a constant-offset prefix max
      (dp[k] = k*del + cummax_k(cand[k] - k*del) — exactly the reference
      recurrence, see ops/oracle.py for the derivation);

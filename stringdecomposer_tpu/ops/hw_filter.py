@@ -16,9 +16,10 @@ carries one column over monomer positions per (window, monomer) pair; the
 within-column "up" chain folds into a prefix min (same trick as
 ops/chain_dp.py).
 
-On TPU the filter does not make the chain DP cheaper (shapes are static;
-dropped monomers become masked rows) — it exists for output parity: the
-monomer subset and its ORDER change tie-breaking in the DP and traceback.
+On the device the filter does not make the chain DP cheaper (shapes are
+static; dropped monomers become masked rows) — it exists for output parity:
+the monomer subset and its ORDER change tie-breaking in the DP and
+traceback.
 """
 
 from __future__ import annotations
@@ -28,8 +29,6 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 BIG = np.int32(1 << 28)
 
@@ -75,135 +74,6 @@ def hw_distance_batch(
     xs = (win_i[:, :].T, jnp.arange(1, W + 1, dtype=jnp.int32))
     (_, best), _ = jax.lax.scan(step, (D0, best0), xs)
     return best
-
-
-def _hw_kernel(
-    tc_ref,  # [R, t_tile] int32 window chars
-    q_ref,  # [R, L] int32 monomer codes, right-aligned
-    qlen_ref,  # [R, 1] int32 monomer lengths
-    tlen_ref,  # [R, 1] int32 window lengths
-    out_ref,  # [R, 8] int32; lane 0 = HW distance
-    D_s,  # scratch [R, L]
-    m_s,  # scratch [R, 8] running min
-    *,
-    L: int,
-    t_tile: int,
-    n_tiles: int,
-):
-    from jax.experimental.pallas import tpu as pltpu
-
-    R = q_ref.shape[0]
-    t_idx = pl.program_id(1)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (R, L), 1)
-    off = L - 1 - qlen_ref[...]
-    valid = lane >= off
-    first = lane == off
-    tlen = tlen_ref[...]
-
-    @pl.when(t_idx == 0)
-    def _():
-        D0 = jnp.where(valid, lane - off, BIG)  # D[i][0] = i
-        D_s[...] = D0
-        m_s[...] = jnp.broadcast_to(qlen_ref[...], (R, 8))  # dist at j=0: m
-
-    q = q_ref[...]
-
-    def ladder(t):
-        s = 1
-        while s < L:
-            t = jnp.minimum(t, jnp.where(lane >= s, pltpu.roll(t, s, 1), BIG))
-            s *= 2
-        return t
-
-    def body(s, carry):
-        D, rmin, tc_r = carry
-        j = t_idx * t_tile + s + 1
-        sub = jnp.where(q == tc_r[:, :1], 0, 1)
-        diag = jnp.where(first, BIG, pltpu.roll(D, 1, 1) + sub)
-        cand = jnp.minimum(D + 1, diag)
-        cand = jnp.where(first, 0, cand)  # free target prefix: D[0][j] = 0
-        cand = jnp.where(valid, cand, BIG)
-        D = ladder(cand - lane) + lane
-        endD = D[:, L - 1 :]
-        hit = (j <= tlen) & (endD < rmin[:, :1])
-        rmin = jnp.where(hit, jnp.broadcast_to(endD, rmin.shape), rmin)
-        return D, rmin, pltpu.roll(tc_r, t_tile - 1, 1)
-
-    D, rmin, _ = jax.lax.fori_loop(
-        0, t_tile, body, (D_s[...], m_s[...], tc_ref[...])
-    )
-    D_s[...] = D
-    m_s[...] = rmin
-
-    @pl.when(t_idx == n_tiles - 1)
-    def _():
-        out_ref[...] = rmin
-
-
-@partial(jax.jit, static_argnames=("pair_tile", "t_tile"))
-def hw_distance_batch_pallas(
-    windows: jnp.ndarray,  # [B, W] int8
-    window_lens: jnp.ndarray,  # [B] int32
-    mono: jnp.ndarray,  # [M, L] int8
-    mono_lens: jnp.ndarray,  # [M] int32
-    pair_tile: int = 512,
-    t_tile: int = 128,
-) -> jnp.ndarray:
-    """Fused Pallas version of hw_distance_batch (same [B, M] output):
-    (window, monomer) pairs on sublanes, monomer column on lanes, window
-    chars streamed through a fori_loop — the ladder carries distance only,
-    so the prefilter costs about half a chain-DP pass instead of a full
-    second scan through HBM."""
-    B, W = windows.shape
-    M, Lq = mono.shape
-    P = B * M
-    # VMEM budget (see identity_pallas): shrink the pair tile, never OOM
-    L_fit = (Lq + 1 + 127) // 128 * 128
-    fit = max(8, ((8 << 20) // (L_fit * 12)) // 8 * 8)
-    R = min(pair_tile, fit, max(8, -(-P // 8) * 8))
-    P_pad = -(-P // R) * R
-    L = (Lq + 1 + 127) // 128 * 128
-    n_tiles = max(1, -(-W // t_tile))
-    T_in = n_tiles * t_tile
-
-    rc = jnp.repeat(windows.astype(jnp.int32), M, axis=0)  # row r = (b, m)
-    rc = jnp.pad(rc, ((0, P_pad - P), (0, T_in - W)), constant_values=-9)
-    q = jnp.broadcast_to(mono.astype(jnp.int32)[None], (B, M, Lq)).reshape(P, Lq)
-    q = jnp.pad(q, ((0, P_pad - P), (0, L - Lq)), constant_values=-7)
-    ql = jnp.broadcast_to(mono_lens.astype(jnp.int32)[None], (B, M)).reshape(P)
-    ql = jnp.pad(ql, (0, P_pad - P))
-    q = jax.vmap(lambda r, n: jnp.roll(r, L - n))(q, ql)  # right-align
-    tl = jnp.repeat(window_lens.astype(jnp.int32), M)
-    tl = jnp.pad(tl, (0, P_pad - P))
-
-    kernel = partial(_hw_kernel, L=L, t_tile=t_tile, n_tiles=n_tiles)
-    interpret = jax.default_backend() == "cpu"
-    out = pl.pallas_call(
-        kernel,
-        grid=(P_pad // R, n_tiles),
-        in_specs=[
-            pl.BlockSpec((R, t_tile), lambda b, s: (b, s), memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, L), lambda b, s: (b, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, 1), lambda b, s: (b, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, 1), lambda b, s: (b, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((R, 8), lambda b, s: (b, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((P_pad, 8), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((R, L), jnp.int32),
-            pltpu.VMEM((R, 8), jnp.int32),
-        ],
-        interpret=interpret,
-    )(rc, q, ql[:, None], tl[:, None])
-    return out[:P, 0].reshape(B, M)
-
-
-def resolve_hw_distance():
-    """Pallas kernel on real hardware, lax.scan on CPU (same auto rule as
-    the other kernels)."""
-    if jax.default_backend() == "cpu":
-        return hw_distance_batch
-    return hw_distance_batch_pallas
 
 
 def filter_monomers(

@@ -16,7 +16,7 @@ The Ukkonen band never alters this choice (out-of-band neighbours have
 distance > k >= d, so their equality can never hold), hence a full-matrix
 forward propagation of (distance, matches, columns) under the same
 preference reproduces edlib's returned path exactly — no CIGAR, no
-traceback, no per-cell output. On TPU the within-column "up" chain folds
+traceback, no per-cell output. On the device the within-column "up" chain folds
 into a constant-offset prefix min (pair-cummin with earliest-tie, the same
 trick as ops/chain_dp.py), so the kernel is a single scan over target
 positions, batched over thousands of (block, monomer) pairs.
@@ -168,3 +168,86 @@ def nw_identity_batch(
         step, (D0, Mt0, Ln0, out0), jnp.arange(1, Lt + 1, dtype=jnp.int32)
     )
     return out
+
+
+def nw_identity_cross(q, q_lens, targets, t_lens, q_len: int = 0):
+    """[n * M, 2] int32 (distance, columns) for every (query row, target
+    row) pair, row-major — the cross product of the packed finishing path,
+    on nw_identity_batch. Traceable; q_len (the CUDA route's column bound)
+    is unused here."""
+    n, M = q.shape[0], targets.shape[0]
+    D, _, Ln = nw_identity_batch(
+        jnp.repeat(q, M, axis=0), jnp.repeat(q_lens, M),
+        jnp.tile(targets, (n, 1)), jnp.tile(t_lens, n),
+    )
+    return jnp.stack([D, Ln], axis=1)
+
+
+def _blocks_from_read(read_dev, starts, lens, Lq):
+    """[n_pad, Lq] int32 block substrings gathered from the resident read."""
+    lane = jnp.arange(Lq, dtype=jnp.int32)[None, :]
+    idx = jnp.clip(starts[:, None] + lane, 0, read_dev.shape[0] - 1)
+    return jnp.where(lane < lens[:, None], read_dev[idx].astype(jnp.int32), 7)
+
+
+def _homo_collapse(q, lens, Lq):
+    """Run-collapse rows on device: keep first lane + change points, then a
+    stable argsort on (dropped, lane) compacts kept chars to the front."""
+    lane = jnp.arange(Lq, dtype=jnp.int32)[None, :]
+    prev = jnp.roll(q, 1, axis=1)
+    keep = ((lane == 0) | (q != prev)) & (lane < lens[:, None])
+    order = jnp.argsort(~keep, axis=1, stable=True)
+    qh = jnp.take_along_axis(q, order, axis=1)
+    hlens = keep.sum(axis=1).astype(jnp.int32)
+    return jnp.where(lane < hlens[:, None], qh, 7), hlens
+
+
+def nw_identity_packed_both(
+    read_dev,  # [N] int8 device codes (uploaded once per read)
+    starts,  # np [n] block starts (into read_dev)
+    lens,  # np [n] block lengths (end - start + 1)
+    t_raw_dev,  # [M, Lt] device monomer codes (raw)
+    tl_raw,  # np [M] int32
+    t_homo_dev,  # [M, Lt_h] device monomer codes (homopolymer-compressed)
+    tl_homo,  # np [M] int32
+    n_pad: int,
+    Lq: int,
+    backend: str = "auto",
+) -> jnp.ndarray:
+    """Device-side finishing dispatch: extracts the n block substrings from
+    the resident read, homopolymer-compresses them ON DEVICE, scores the
+    (block x monomer) cross product for both variants, and returns ONE
+    [2, n_pad * M, 2] int32 array of (distance, columns) per (variant,
+    pair) — the only device->host transfer of the group. matches =
+    columns - distance. Replaces the per-block convert_read slicing of the
+    reference (main.py:124-142).
+
+    n_pad (row menu) and Lq (>= max block length) are the caller's compile
+    keys; the NW route is picked from the longest block (homo-collapse never
+    lengthens a sequence), rounded to the kernel's 32-row granularity so it
+    adds few keys of its own."""
+    from .backend import resolve
+
+    max_len = int(np.asarray(lens).max()) if len(lens) else 0
+    q_len = -(-(max_len + 1) // 32) * 32 - 1
+    cross = resolve("nw_cross", backend, q_len=q_len)
+    starts_np = np.zeros(n_pad, dtype=np.int32)
+    lens_np = np.zeros(n_pad, dtype=np.int32)
+    starts_np[: len(starts)] = starts
+    lens_np[: len(lens)] = lens
+    return _packed_both_jit(
+        read_dev, jnp.asarray(starts_np), jnp.asarray(lens_np),
+        t_raw_dev, jnp.asarray(np.asarray(tl_raw, dtype=np.int32)),
+        t_homo_dev, jnp.asarray(np.asarray(tl_homo, dtype=np.int32)),
+        Lq=Lq, cross=cross, q_len=q_len,
+    )
+
+
+@partial(jax.jit, static_argnames=("Lq", "cross", "q_len"))
+def _packed_both_jit(read_dev, starts, lens, t_raw, tl_raw, t_homo, tl_homo,
+                     Lq, cross, q_len):
+    q = _blocks_from_read(read_dev, starts, lens, Lq)
+    raw = cross(q, lens, t_raw, tl_raw, q_len=q_len)
+    qh, hlens = _homo_collapse(q, lens, Lq)
+    homo = cross(qh, hlens, t_homo, tl_homo, q_len=q_len)
+    return jnp.stack([raw, homo])

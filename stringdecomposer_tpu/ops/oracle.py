@@ -1,10 +1,10 @@
 """NumPy executable specification of the chain DP (monomer string decomposition).
 
-This module is the ground-truth spec that the TPU kernels are tested against.
+This module is the ground-truth spec that the device kernels are tested against.
 It reproduces, bit-for-bit, the observable behavior of the reference C++ core
 (reference: src/main.cpp:151-270 `AlignPartClassicDP`), including every
 tie-breaking rule of its traceback, but is written as a vectorized
-column-sweep (the same formulation the TPU kernel uses) rather than a
+column-sweep (the same formulation the device kernels use) rather than a
 cell-by-cell triple loop.
 
 DP formulation

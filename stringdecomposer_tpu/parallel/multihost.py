@@ -1,7 +1,7 @@
 """Multi-host execution: per-host read sharding + deterministic TSV merge.
 
 The reference is single-node (SURVEY.md §2: OpenMP threads + one fork/exec,
-no network communication). The TPU-native scale-out model replaces that with:
+no network communication). The scale-out model here replaces that with:
 
   - `jax.distributed.initialize` for process topology (parallel/mesh.py);
   - reads sharded across hosts round-robin by input index — DCN carries only
@@ -27,7 +27,7 @@ import os
 import time
 from dataclasses import dataclass
 
-logger = logging.getLogger("SD-TPU")
+logger = logging.getLogger("stringdecomposer")
 
 
 @dataclass

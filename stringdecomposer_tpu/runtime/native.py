@@ -16,7 +16,7 @@ import subprocess
 
 import numpy as np
 
-logger = logging.getLogger("SD-TPU")
+logger = logging.getLogger("stringdecomposer")
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libsdnative.so")

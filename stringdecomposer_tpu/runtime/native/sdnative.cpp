@@ -1,6 +1,6 @@
 // Native host runtime for stringdecomposer_tpu.
 //
-// The TPU kernels produce compact per-window block records; everything that
+// The device kernels produce compact per-window block records; everything that
 // remains on the host path at production scale (merging windows to global
 // coordinates, the halo-duplicate suppression, raw-TSV formatting, FASTA
 // encoding/validation, homopolymer compression) is implemented here and

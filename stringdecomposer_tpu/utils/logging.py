@@ -8,7 +8,7 @@ import os
 import sys
 
 
-def get_logger(log_file: str, logger_name: str = "SD-TPU", level=logging.DEBUG) -> logging.Logger:
+def get_logger(log_file: str, logger_name: str = "stringdecomposer", level=logging.DEBUG) -> logging.Logger:
     logger = logging.getLogger(logger_name)
     logger.setLevel(level)
     fmt = logging.Formatter("%(asctime)s - %(name)s - %(levelname)s - %(message)s")

@@ -517,3 +517,131 @@ def test_nw_distance_doubling_matches_full(monkeypatch):
     got = [r["editDistance"]
            for r in align.align_batch(qs, ts, mode="NW", task="distance")]
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# Banded and k-limited scan routes vs independent NumPy specs
+# ---------------------------------------------------------------------------
+def _semi_spec(q, t, free_prefix):
+    """(best, end locations) of the last DP row, edlib SHW (free_prefix
+    False: D[0][j] = j) or HW (True: D[0][j] = 0); end -1 = empty target."""
+    import numpy as np
+
+    qa, ta = np.frombuffer(q.encode(), np.uint8), np.frombuffer(t.encode(), np.uint8)
+    n = len(ta)
+    jj = np.arange(n + 1)
+    row = np.zeros(n + 1, np.int64) if free_prefix else jj.copy()
+    for i in range(1, len(qa) + 1):
+        cand = np.empty(n + 1, np.int64)
+        cand[0] = i
+        cand[1:] = np.minimum(row[1:] + 1, row[:-1] + (ta != qa[i - 1]))
+        row = np.minimum.accumulate(cand - jj) + jj
+    best = int(row.min())
+    return best, [int(j) - 1 for j in np.flatnonzero(row == best)]
+
+
+def _mutated_pairs(rng, n_pairs, lo, hi, max_mut):
+    import numpy as np
+
+    alpha = np.array(list("ACGT"))
+    pairs = []
+    for _ in range(n_pairs):
+        a = rng.integers(0, 4, int(rng.integers(lo, hi)))
+        b = a.copy()
+        for i in sorted(rng.choice(len(b), int(rng.integers(0, max_mut)),
+                                   replace=False).tolist(), reverse=True):
+            r = rng.random()
+            if r < 0.6:
+                b[i] = (b[i] + 1 + rng.integers(3)) % 4
+            elif r < 0.8:
+                b = np.delete(b, i)
+            else:
+                b = np.insert(b, i, rng.integers(4))
+        pairs.append(("".join(alpha[a]), "".join(alpha[b])))
+    return pairs
+
+
+@pytest.mark.parametrize("route", [
+    "nw_band_k1", "nw_band_k8", "nw_band_k64", "nw_doubling", "nw_path_hirschberg",
+    "shw_k48", "hw_k48", "shw_full", "hw_full",
+])
+def test_scan_routes_match_spec(route, monkeypatch):
+    """Each alignment route of ops/align.py (Ukkonen-banded NW, k-doubling,
+    Hirschberg path, banded/chunked SHW and HW, full sweeps) against the
+    NumPy specs: exact wherever the k-threshold contract observes."""
+    import re
+
+    import numpy as np
+
+    import stringdecomposer_tpu.ops.align as A
+    from stringdecomposer_tpu.ops.identity import nw_path_spec
+
+    rng = np.random.default_rng(sum(map(ord, route)))
+    if route.startswith("nw_"):
+        pairs = _mutated_pairs(rng, 3, 150, 320, 40)
+        if route == "nw_doubling":
+            monkeypatch.setattr(A, "NW_DOUBLING_MIN_LEN", 64)
+        if route == "nw_path_hirschberg":
+            monkeypatch.setattr(A, "MOVES_CELL_LIMIT", 1 << 12)
+        k = int(route[len("nw_band_k"):]) if route.startswith("nw_band") else -1
+        task = "path" if route == "nw_path_hirschberg" else "distance"
+        res = align_batch([a for a, _ in pairs], [b for _, b in pairs],
+                          mode="NW", task=task, k=k)
+        for (a, b), r in zip(pairs, res):
+            d = nw_path_spec(a, b)[0]
+            assert r["editDistance"] == (d if k < 0 or d <= k else -1), (route, d)
+            if task == "path":
+                ops = re.findall(r"(\d+)([=XID])", r["cigar"])
+                n = {c: sum(int(x) for x, y in ops if y == c) for c in "=XID"}
+                assert n["="] + n["X"] + n["I"] == len(a)
+                assert n["="] + n["X"] + n["D"] == len(b)
+                assert n["X"] + n["I"] + n["D"] == d
+        return
+    mode = route[:3].upper().rstrip("_")
+    k = 48 if route.endswith("k48") else -1
+    pairs = []
+    lo, hi = (750, 900) if route == "hw_k48" else (100, 400)  # HW band: tall queries
+    for a, b in _mutated_pairs(rng, 4, lo, hi, 20):
+        pad = lambda m: "".join(rng.choice(list("ACGT"), m))  # noqa: E731
+        pairs.append((a, pad(int(rng.integers(0, 300))) + b + pad(int(rng.integers(0, 300)))))
+    pairs.append(("", "ACGTACGT"))
+    res = align_batch([a for a, _ in pairs], [b for _, b in pairs],
+                      mode=mode, task="locations", k=k)
+    for (a, b), r in zip(pairs, res):
+        best, ends = _semi_spec(a, b, free_prefix=mode == "HW")
+        if 0 <= k < best:
+            assert r["editDistance"] == -1 and r["endLocations"] == [], route
+        else:
+            assert r["editDistance"] == best, route
+            assert r["endLocations"] == ends, route
+
+
+def test_align_data_parallel_byte_identical(monkeypatch):
+    """SDTPU_ALIGN_DP: results over the 8-device virtual mesh (the default
+    in this suite) are byte-identical to forced single-device execution —
+    rows are independent pairs, sharding must be invisible."""
+    import jax
+    import numpy as np
+
+    from stringdecomposer_tpu.ops import align as A
+
+    assert len(jax.devices()) >= 2  # conftest forces the virtual mesh
+    rng = np.random.default_rng(16)
+    alpha = np.array(list("ACGT"))
+    qs, ts = [], []
+    for _ in range(19):  # odd, > n_dev: exercises row padding
+        n = int(rng.integers(50, 500))
+        a = rng.integers(0, 4, n)
+        b = a.copy()
+        for i in sorted(rng.choice(n, int(rng.integers(0, 12)),
+                                   replace=False).tolist(), reverse=True):
+            b[i] = (b[i] + 1 + rng.integers(3)) % 4
+        qs.append("".join(alpha[a]))
+        ts.append("".join(alpha[b]))
+    for mode, task in (("NW", "path"), ("SHW", "locations"),
+                       ("HW", "locations")):
+        sharded = A.align_batch(qs, ts, mode=mode, task=task, k=40)
+        monkeypatch.setattr(A, "ALIGN_DATA_PARALLEL", "off")
+        single = A.align_batch(qs, ts, mode=mode, task=task, k=40)
+        monkeypatch.setattr(A, "ALIGN_DATA_PARALLEL", "auto")
+        assert sharded == single, (mode, task)

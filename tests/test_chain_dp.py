@@ -89,3 +89,80 @@ def test_full_read_byte_parity(test_data_dir):
         out = os.path.join(d, "raw.tsv")
         write_raw_tsv(out, result, [m.name for m in monomers])
         assert filecmp.cmp(out, test_data_dir / "raw_decomposition_oracle.tsv", shallow=False)
+
+
+def _case_windows(case):
+    monomers = add_reverse_complement([Record(n, s) for n, s in case["monomers"]])
+    mono, lens = pad_monomers(monomers, pad_to=_pad8(max(len(m.seq) for m in monomers)))
+    seq = case.get("read") or case["reads"][1][1]
+    return mono, lens, [encode(seq[:60]), encode(seq[:37]), encode(seq[:64])]
+
+
+@pytest.mark.parametrize("ci", [0, 1, 2, 3])
+def test_padded_batch_matches_oracle(random_cases, ci):
+    """Windows of different lengths share one READ_PAD-padded batch (the
+    pipeline's layout for every route): each window's blocks equal the NumPy
+    spec run on that window alone."""
+    case = random_cases[ci]
+    mono, lens, wins = _case_windows(case)
+    sc = Scoring(*case["scoring"])
+    wb, wl = build_window_batch(wins, 64)
+    bl, ct = chain_dp_forward(wb, wl, mono, lens, ins=sc.ins, dele=sc.dele,
+                              mismatch=sc.mismatch, match=sc.match)
+    for b, codes in enumerate(wins):
+        got = blocks_from_device(np.asarray(bl[b]), int(ct[b]))
+        assert got == oracle.decompose_window_oracle(codes, mono, lens, sc), (ci, b)
+
+
+def test_per_window_monomers_match_oracle(random_cases):
+    """The ed_thr filter hands the DP a per-window [B, M, L] monomer tensor
+    with rows reordered and dropped (length 0) per window
+    (src/main.cpp:135-149): each window equals the spec run on its own
+    monomer subset."""
+    mono, lens, wins = _case_windows(random_cases[0])
+    wb, wl = build_window_batch(wins, 64)
+    B, M, L = len(wins), mono.shape[0], mono.shape[1]
+    rng = np.random.default_rng(0)
+    mono_b = np.full((B, M, L), 5, dtype=np.int8)
+    lens_b = np.zeros((B, M), dtype=np.int32)
+    keeps = []
+    for b in range(B):
+        keep = rng.permutation(M)[: M - b]  # different subset per window
+        mono_b[b, : len(keep)] = mono[keep]
+        lens_b[b, : len(keep)] = lens[keep]
+        keeps.append(keep)
+    bl, ct = chain_dp_forward(wb, wl, mono_b, lens_b)
+    for b, codes in enumerate(wins):
+        got = blocks_from_device(np.asarray(bl[b]), int(ct[b]))
+        k = keeps[b]
+        assert got == oracle.decompose_window_oracle(codes, mono[k], lens[k], Scoring()), b
+
+
+def test_large_monomer_library_matches_oracle():
+    """M=128 (64 fwd + RC), the HOR-scale row count: oracle-exact. Small
+    windows keep the CPU scan fast."""
+    rng = np.random.default_rng(23)
+    alpha = np.array(list("ACGT"))
+    fwd = [
+        Record(f"m{j}", "".join(rng.choice(alpha, int(rng.integers(20, 40)))))
+        for j in range(64)
+    ]
+    monomers = add_reverse_complement(fwd)
+    mono, lens = pad_monomers(monomers, pad_to=_pad8(max(len(m.seq) for m in monomers)))
+    W = 96
+    wins = []
+    for b in range(2):
+        unit = fwd[int(rng.integers(64))].seq
+        arr = np.array(list((unit * (W // len(unit) + 2))[: int(rng.integers(50, W))]))
+        idx = rng.integers(0, len(arr), max(1, len(arr) // 10))
+        arr[idx] = rng.choice(alpha, len(idx))
+        wins.append(encode("".join(arr)))
+    wb, wl = build_window_batch(wins, W)
+    bl, ct = chain_dp_forward(wb, wl, mono, lens)
+    bl, ct = np.asarray(bl), np.asarray(ct)
+    for b in range(len(wins)):
+        want = [(k.monomer, k.start, k.end, k.identity)
+                for k in oracle.decompose_window_oracle(wins[b], mono, lens, Scoring())]
+        got = [(g.monomer, g.start, g.end, g.identity)
+               for g in blocks_from_device(bl[b], ct[b])]
+        assert got == want, b

@@ -77,27 +77,3 @@ def test_ed_thr_pipeline_matches_reference(ed_thr_cases):
             rows.extend(format_raw_rows(rname, blocks, names))
         got = "".join(r + "\n" for r in rows)
         assert got == case["raw"], f"case {idx} (ed_thr={case['ed_thr']})"
-
-
-def test_hw_pallas_matches_scan():
-    """hw_distance_batch_pallas (interpret on CPU) vs the scan kernel."""
-    import numpy as np
-
-    from stringdecomposer_tpu.ops.hw_filter import (
-        hw_distance_batch,
-        hw_distance_batch_pallas,
-    )
-
-    rng = np.random.default_rng(11)
-    B, W, M, L = 3, 70, 5, 24
-    windows = rng.integers(0, 4, size=(B, W), dtype=np.int8)
-    wlens = np.array([70, 33, 1], dtype=np.int32)
-    mono = np.full((M, L), 5, dtype=np.int8)
-    lens = rng.integers(8, L, size=M).astype(np.int32)
-    for j in range(M):
-        mono[j, : lens[j]] = rng.integers(0, 4, size=lens[j], dtype=np.int8)
-    a = np.asarray(hw_distance_batch(windows, wlens, mono, lens))
-    b = np.asarray(
-        hw_distance_batch_pallas(windows, wlens, mono, lens, pair_tile=8, t_tile=16)
-    )
-    np.testing.assert_array_equal(a, b)
